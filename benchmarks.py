@@ -1,8 +1,13 @@
 #!/usr/bin/env python
-"""Benchmark sweep over the BASELINE.md configs.
+"""Benchmark sweep over the BASELINE.md configs, on the GPU.
 
-`bench.py` prints the single headline JSON line for the driver; this script
-measures every config and writes benchmarks.json. Run on TPU.
+`bench.py` prints the single headline JSON line; this script measures
+every config and prints one JSON line per config, each stamped with the
+device as JAX reports it and the card's name and power limit. Fails when
+JAX finds no GPU.
+
+    python benchmarks.py                 # every config
+    python benchmarks.py mesh interior   # configs whose name matches
 
 Configs [ref: BASELINE.md / BASELINE.json]:
   1. Cornell box, direct lighting, 256², 16 spp
@@ -20,18 +25,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+from pbrs_jax import runtime
 
 
 def run_config(name, scene, size, spp, depth, integrator="path"):
-    from pbrs_tpu.accel import dispatch as td
-    from pbrs_tpu.core import sampler as smp
-    from pbrs_tpu.geometry import camera as cam_mod
-    from pbrs_tpu.integrators import direct as direct_mod
-    from pbrs_tpu.integrators import wavefront
-
-    import os
+    from pbrs_jax.accel import dispatch as td
+    from pbrs_jax.core import sampler as smp
+    from pbrs_jax.geometry import camera as cam_mod
+    from pbrs_jax.integrators import direct as direct_mod
+    from pbrs_jax.integrators import wavefront
 
     cam = scene.camera
     scale_w = (cam.width // 2) / (size[0] // 2)
@@ -63,11 +65,11 @@ def run_config(name, scene, size, spp, depth, integrator="path"):
         ).astype(jnp.int32)
 
     if integrator == "path":
-        from pbrs_tpu import tuner
+        from pbrs_jax import tuner
 
-        # Pilot-measured configuration (integrator x trace mode x
-        # compaction) at this config's real launch shapes; env vars
-        # PBRS_TRACE_MODE / PBRS_COMPACT pin a variant for profiling.
+        # Pilot-measured configuration (NEE structure x loop shape) at
+        # this config's real launch shapes; PBRS_COMPACT pins the loop
+        # shape for profiling.
         tuned = tuner.tune(scene, sampler, lanes_chunks[0], sample_ids(0),
                            depth=depth, msaa=msaa, verbose=True)
         print(f"  tuned: {tuned.label}", file=sys.stderr, flush=True)
@@ -111,9 +113,9 @@ def run_config(name, scene, size, spp, depth, integrator="path"):
         full_time = dt / iters_samples * (msaa * msaa)
         out = {
             "config": name, "resolution": list(size), "spp": msaa * msaa,
-            "depth": depth, "mrays_per_sec": round(mrays, 2),
-            "wall_to_target_spp_sec": round(full_time, 3),
-            "checksum": round(acc, 1),
+            "depth": depth, "mrays_per_sec": mrays,
+            "wall_to_target_spp_sec": full_time,
+            "checksum": acc,
             "samples_per_launch": samples_per_launch,
             "tuned": tuned_label,
         }
@@ -134,12 +136,10 @@ def run_config(name, scene, size, spp, depth, integrator="path"):
             f2 = jax.jit(count2)
             cnt_two = sum(float(f2(lanes, samples_per_launch))
                           for lanes in lanes_chunks)
-            out["equiv_twoarm_mrays_per_sec"] = round(
-                cnt_two * iters / dt / 1e6, 2)
+            out["equiv_twoarm_mrays_per_sec"] = cnt_two * iters / dt / 1e6
         return out
-    if True:
-        trace_mode = os.environ.get("PBRS_TRACE_MODE") or None
-        isect_fn, occl_fn = td.make_trace_fns(scene, trace_mode=trace_mode)
+    else:
+        isect_fn, occl_fn = td.make_trace_fns(scene)
 
         def step(lanes, base):
             sid = sample_ids(base)
@@ -169,19 +169,22 @@ def run_config(name, scene, size, spp, depth, integrator="path"):
         "resolution": list(size),
         "spp": msaa * msaa,
         "depth": depth,
-        "mrays_per_sec": round(mrays, 2),
-        "wall_to_target_spp_sec": round(full_time, 3),
-        "checksum": round(acc, 1),
+        "mrays_per_sec": mrays,
+        "wall_to_target_spp_sec": full_time,
+        "checksum": acc,
         "samples_per_launch": samples_per_launch,
     }
 
 
 def main():
-    from pbrs_tpu.scene import presets
+    runtime.enable_compile_cache()
+    runtime.require_gpu()
+    from pbrs_jax.scene import presets
 
+    stamp = {"device": runtime.device_record(),
+             "card": runtime.gpu_name_and_power_limit()}
     # Optional config filter: `python benchmarks.py mesh interior` runs
-    # only configs whose name contains one of the substrings, and merges
-    # results into the existing benchmarks.json instead of replacing it.
+    # only configs whose name contains one of the substrings.
     sel = sys.argv[1:]
 
     def wanted(name):
@@ -196,8 +199,9 @@ def main():
 
     def emit(r):
         if r is not None:
+            r.update(stamp)
             results.append(r)
-            print(json.dumps(r), file=sys.stderr, flush=True)
+            print(json.dumps(r), flush=True)
 
     emit(run_config(
         "cornell_direct_256_16spp", presets.cornell_box(), (256, 256), 16, 2,
@@ -238,7 +242,7 @@ def main():
     # ObjectInstance groups — through the full file->parse->load->render
     # pipeline. Config 5 measures per-sample launches and extrapolates the
     # wall-clock to the 1024-spp target (launches are identical per sample).
-    from pbrs_tpu.scene.pbrt import loader as pbrt_loader
+    from pbrs_jax.scene.pbrt import loader as pbrt_loader
 
     interior = pbrt_loader.build_scene("scenes/interior/interior.pbrt")
     emit(run_config(
@@ -248,17 +252,6 @@ def main():
         "interior_pbrt_1920x1080_1024spp", interior, (1920, 1080), 1024, 8,
     ))
 
-    if sel:
-        try:
-            with open("benchmarks.json") as f:
-                old = {r["config"]: r for r in json.load(f)}
-        except Exception:
-            old = {}
-        for r in results:
-            old[r["config"]] = r
-        results = list(old.values())
-    with open("benchmarks.json", "w") as f:
-        json.dump(results, f, indent=1)
     print(json.dumps({"benchmarks": len(results)}))
     return 0
 

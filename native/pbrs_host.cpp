@@ -1,4 +1,4 @@
-// Native host-side scene-compilation kernels for pbrs_tpu.
+// Native host-side scene-compilation kernels for pbrs_jax.
 //
 // The device compute path is JAX/XLA/Pallas; this library covers the
 // CPU-bound scene-compile steps the reference implements in Rust:

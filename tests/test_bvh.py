@@ -1,14 +1,13 @@
-"""Host BVH builder + packet traversal kernel tests."""
+"""Host BVH builder tests: soundness, native vs NumPy builds, and the
+flat DFS + skip-link layout that a per-lane traversal walks."""
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
 
-from pbrs_tpu.accel import bvh as bvh_mod
-from pbrs_tpu.accel import mesh_pallas, trace_pallas
-from pbrs_tpu.geometry import ray as ray_mod
-from pbrs_tpu.scene import presets, subdivision
-from pbrs_tpu.shapes import intersect as im
+from pbrs_jax.accel import bvh as bvh_mod
+from pbrs_jax.geometry import ray as ray_mod
+from pbrs_jax.scene import subdivision
+from pbrs_jax.shapes import intersect as im
 
 
 def _mesh(levels=2):
@@ -37,61 +36,8 @@ def test_bvh_build_sound():
     assert bvh.depth < 40
 
 
-def test_bvh_traversal_matches_brute(cpu_rays=512):
-    p0, p1, p2 = _mesh(2)  # 512 tris
-    tracer = mesh_pallas.MeshBVHTracer(p0, p1, p2, global_base=0,
-                                       interpret=True)
-    rng = np.random.default_rng(0)
-    # Rays from a shell aimed inward + some random misses.
-    o = rng.normal(size=(cpu_rays, 3)).astype(np.float32)
-    o = o / np.linalg.norm(o, axis=1, keepdims=True) * 3.0
-    d = -o + rng.normal(size=(cpu_rays, 3)).astype(np.float32) * 0.8
-    rays = ray_mod.make_rays(jnp.asarray(o), jnp.asarray(d))
-    t_bvh, idx_bvh = tracer.trace(rays)
-
-    # Brute force via the jnp triangle sweep.
-    from pbrs_tpu.shapes.tables import GeometryBuilder
-
-    g = GeometryBuilder()
-    for a, b, c in zip(p0, p1, p2):
-        g.add_triangle(a, b, c, mat=0)
-    geom = g.build()
-    hit = im.intersect(geom, rays)
-    t_ref = np.asarray(hit.t)
-    t_bvh = np.asarray(t_bvh)
-    both_inf = np.isinf(t_bvh) & np.isinf(t_ref)
-    close = np.isclose(t_bvh, t_ref, rtol=1e-4, atol=1e-4)
-    assert np.mean(both_inf | close) > 0.999, np.mean(both_inf | close)
-
-
-def test_tracer_uses_bvh_for_big_meshes():
-    scene = presets.mesh_ball(levels=3)
-    # Force the BVH path (the default threshold keeps 1k tris on the flat
-    # sweep, which is faster on TPU — this test checks BVH correctness).
-    tracer = trace_pallas.PallasTracer(scene.geom, interpret=True,
-                                       bvh_threshold=32)
-    assert tracer.mesh is not None
-    n = 256
-    rng = np.random.default_rng(1)
-    o = np.tile(np.asarray([[0, 2.2, -7.5]], np.float32), (n, 1))
-    d = np.asarray([0, -0.15, 1.0], np.float32) + rng.normal(
-        size=(n, 3)
-    ).astype(np.float32) * 0.15
-    rays = ray_mod.make_rays(jnp.asarray(o), jnp.asarray(d))
-    t_p, idx_p = tracer.trace(rays)
-    hit_j = im.intersect(scene.geom, rays)
-    t_p, t_j = np.asarray(t_p), np.asarray(hit_j.t)
-    both_inf = np.isinf(t_p) & np.isinf(t_j)
-    close = np.isclose(t_p, t_j, rtol=1e-4, atol=1e-4)
-    assert np.mean(both_inf | close) > 0.995
-    # occlusion path agrees too
-    occ_p = np.asarray(tracer.occluded(rays))
-    occ_j = np.asarray(im.occluded(scene.geom, rays))
-    assert np.mean(occ_p == occ_j) > 0.995
-
-
 def test_native_builder_matches_numpy_validity():
-    from pbrs_tpu.accel import native
+    from pbrs_jax.accel import native
 
     p0, p1, p2 = _mesh(3)
     lo, hi = bvh_mod.triangle_bboxes(p0, p1, p2)
@@ -104,52 +50,72 @@ def test_native_builder_matches_numpy_validity():
     # child is within bounds and skip targets are monotone.
     nn = nat.bbox_min.shape[0]
     assert (nat.skip > np.arange(nn)).all() and (nat.skip <= nn).all()
-    # Traversal with the native tree gives identical hits (interpret mode).
-    gid = np.arange(p0.shape[0]).astype(np.float32)
-    slots = mesh_pallas.tri_slot_cols(p0, p1, p2, gid)
-
-    def make(bvh):
-        tracer = mesh_pallas.PrimBVHTracer.__new__(mesh_pallas.PrimBVHTracer)
-        tracer.kind = mesh_pallas.KIND_TRI
-        tracer.block_rows = mesh_pallas.BLOCK_ROWS
-        tracer.bvh = bvh
-        tracer.node_arrays, tracer.leaf_rows = mesh_pallas.pack_mesh(
-            bvh, slots, 0
-        )
-        tracer.num_nodes = int(tracer.node_arrays[0].shape[0])
-        tracer.interpret = True
-        return tracer
-
+    # A stackless walk over each tree's DFS + skip layout finds the same
+    # closest hits as the brute-force sweep.
     rng = np.random.default_rng(0)
     n = 256
     o = rng.normal(size=(n, 3)).astype(np.float32)
     o = o / np.linalg.norm(o, axis=1, keepdims=True) * 3.0
     d = -o + rng.normal(size=(n, 3)).astype(np.float32) * 0.5
     rays = ray_mod.make_rays(jnp.asarray(o), jnp.asarray(d))
-    t_nat, _ = make(nat).trace(rays)
-
+    t_ref = np.asarray(im.closest_t(_tri_geom(p0, p1, p2), rays)[0])
+    assert np.isfinite(t_ref).mean() > 0.5
     py = bvh_mod.build_bvh(lo, hi, max_leaf=8, use_native=False)
-    t_py, _ = make(py).trace(rays)
-    t_nat, t_py = np.asarray(t_nat), np.asarray(t_py)
-    both_inf = np.isinf(t_nat) & np.isinf(t_py)
-    assert np.mean(both_inf | np.isclose(t_nat, t_py, rtol=1e-4)) > 0.999
+    for tree in (nat, py):
+        t_walk = _walk(tree, p0, p1, p2, o, d)
+        both_inf = np.isinf(t_walk) & np.isinf(t_ref)
+        close = np.isclose(t_walk, t_ref, rtol=1e-4, atol=1e-5)
+        assert np.mean(both_inf | close) > 0.999
 
 
-def test_wedge_guard_poisoned_skip_terminates():
-    # Round-3 post-mortem: an unbounded device while loop wedges the whole
-    # shared chip. The BVH walk's hard step cap (nstep < num_nodes + 1)
-    # must terminate traversal even with a cyclic skip table. Poison every
-    # skip pointer back to the root and shoot rays that miss the root box:
-    # nxt = skip = 0 forever, so ONLY the cap can end the loop.
-    p0, p1, p2 = _mesh(1)
-    tracer = mesh_pallas.MeshBVHTracer(p0, p1, p2, global_base=0,
-                                       interpret=True)
-    arrs = list(tracer.node_arrays)
-    arrs[9] = jnp.zeros_like(arrs[9])  # nskip := 0 for every node
-    tracer.node_arrays = arrs
-    o = np.full((32, 3), 100.0, np.float32)
-    d = np.tile(np.array([[1.0, 0, 0]], np.float32), (32, 1))
-    rays = ray_mod.make_rays(jnp.asarray(o), jnp.asarray(d))
-    t, idx = tracer.trace(rays)
-    assert np.isinf(np.asarray(t)).all()
-    assert (np.asarray(idx) == -1).all()
+def _tri_geom(p0, p1, p2):
+    from pbrs_jax.shapes.tables import GeometryBuilder
+
+    g = GeometryBuilder()
+    for a, b, c in zip(p0, p1, p2):
+        g.add_triangle(a, b, c, mat=0)
+    return g.build()
+
+
+def _walk(bvh, p0, p1, p2, origins, dirs):
+    """Closest-hit t per ray by threaded (stackless) traversal: visit
+    nodes in DFS order, descend to node + 1 on a box hit, jump to
+    skip[node] after a leaf or on a box miss."""
+    out = np.full(len(origins), np.inf)
+    for r, (o, d) in enumerate(zip(origins.astype(np.float64),
+                                   dirs.astype(np.float64))):
+        inv = 1.0 / np.where(d == 0.0, 1e-30, d)
+        best, node = np.inf, 0
+        while node < bvh.bbox_min.shape[0]:
+            t0 = (bvh.bbox_min[node] - o) * inv
+            t1 = (bvh.bbox_max[node] - o) * inv
+            t_in = np.minimum(t0, t1).max()
+            t_out = np.maximum(t0, t1).min()
+            if t_in > t_out or t_out < 0.0 or t_in > best:
+                node = bvh.skip[node]
+                continue
+            if not bvh.is_leaf[node]:
+                node += 1
+                continue
+            first, count = bvh.first[node], bvh.count[node]
+            for k in bvh.prim_order[first:first + count]:
+                best = min(best, _moller_trumbore(o, d, p0[k], p1[k], p2[k]))
+            node = bvh.skip[node]
+        out[r] = best
+    return out
+
+
+def _moller_trumbore(o, d, a, b, c):
+    e1, e2 = b - a, c - a
+    pv = np.cross(d, e2)
+    det = e1 @ pv
+    if abs(det) < 1e-12:
+        return np.inf
+    tv = o - a
+    u = (tv @ pv) / det
+    qv = np.cross(tv, e1)
+    v = (d @ qv) / det
+    t = (e2 @ qv) / det
+    if u < 0.0 or v < 0.0 or u + v > 1.0 or t < ray_mod.T_MIN:
+        return np.inf
+    return t

@@ -6,10 +6,10 @@ consistency, Fresnel pinned values."""
 import numpy as np
 import jax.numpy as jnp
 
-from pbrs_tpu.bxdf import fresnel as fr
-from pbrs_tpu.bxdf import lobes as lb
-from pbrs_tpu.bxdf import microfacet as mf
-from pbrs_tpu.core import vecmath as vm
+from pbrs_jax.bxdf import fresnel as fr
+from pbrs_jax.bxdf import lobes as lb
+from pbrs_jax.bxdf import microfacet as mf
+from pbrs_jax.core import vecmath as vm
 
 
 def tesselate_hemisphere(n_theta=64):
@@ -260,7 +260,7 @@ def test_concentric_disk_is_uniform():
     the correct radius CDF (the reference's polar form has a ±33% azimuth
     ripple with period pi/2 — bxdf.rs:187-200, fixed here; COMPAT.md)."""
     import numpy as np
-    from pbrs_tpu.bxdf import lobes as lb
+    from pbrs_jax.bxdf import lobes as lb
 
     rng = np.random.default_rng(0)
     u2 = jnp.asarray(rng.random((1 << 18, 2)), jnp.float32)
@@ -284,7 +284,7 @@ def test_cosine_hemisphere_energy_against_window():
     match the analytic cosine-weighted integral of an off-axis 'window'
     indicator (the polar-form sampler missed this by ~20%)."""
     import numpy as np
-    from pbrs_tpu.bxdf import lobes as lb
+    from pbrs_jax.bxdf import lobes as lb
 
     rng = np.random.default_rng(1)
     u2 = jnp.asarray(rng.random((1 << 18, 2)), jnp.float32)

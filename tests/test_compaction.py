@@ -10,13 +10,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pbrs_tpu.core import sampler as smp
-from pbrs_tpu.integrators import wavefront
-from pbrs_tpu.scene import presets
+from pbrs_jax.core import sampler as smp
+from pbrs_jax.integrators import wavefront
+from pbrs_jax.scene import presets
 
 
 def _small_scene():
-    from pbrs_tpu.geometry import camera as cam_mod
+    from pbrs_jax.geometry import camera as cam_mod
 
     scene = presets.mesh_ball(levels=2)
     cam = scene.camera
@@ -99,37 +99,6 @@ def test_auto_schedule_shapes():
     assert all(s[i + 1] <= s[i] for i in range(len(s) - 1))
 
 
-def test_wave_compacted_matches_masked():
-    """FusedWaveIntegrator's compacted driver == its masked fori loop
-    (same kernel, same RNG streams; compaction only re-banks lanes)."""
-    from pbrs_tpu.accel import fused_wave as fw
-
-    scene = _small_scene()
-    assert fw.scene_supports_wave(scene)
-    integ = fw.FusedWaveIntegrator(scene, interpret=True, use_pallas=False)
-    sampler = smp.PCGSampler(11)
-    n = 64 * 48
-    pix = jnp.arange(n, dtype=jnp.int32)
-    sid = jnp.zeros(n, jnp.int32)
-
-    ref = jax.jit(lambda: integ.render_samples(
-        sampler, pix, sid, max_depth=5, msaa=2))()
-
-    from pbrs_tpu.accel import dispatch as td
-    isect_fn, _ = td.make_trace_fns(scene, use_pallas=False)
-    counts = np.asarray(jax.jit(lambda: wavefront.measure_alive(
-        scene, sampler, pix, sid, max_depth=5, msaa=2,
-        intersect_fn=isect_fn))())
-    sched = wavefront.auto_schedule(counts, n, min_cap=256)
-    assert any(c < n for c in sched[1:]), (sched, counts)
-
-    got = jax.jit(lambda: integ.render_samples_compacted(
-        sampler, pix, sid, sched, max_depth=5, msaa=2,
-        sort_blocks=False))()
-    np.testing.assert_allclose(np.asarray(ref), np.asarray(got),
-                               atol=1e-5, rtol=1e-4)
-
-
 def test_resort_matches_masked():
     """Sort-only resort (cap == n, pure permutation, keep p == 1): the
     banked image must equal the masked loop up to reassociation."""
@@ -162,27 +131,5 @@ def test_resort_folded_matches_masked():
     got = jax.jit(lambda: wavefront.render_samples(
         scene, sampler, pix, sid, max_depth=3, msaa=2,
         nee_mode="folded", resort=True))()
-    np.testing.assert_allclose(np.asarray(ref), np.asarray(got),
-                               atol=1e-5, rtol=1e-4)
-
-
-@pytest.mark.slow
-def test_wave_resort_matches_masked():
-    """FusedWaveIntegrator resort-only driver == its masked loop.
-    (Slow: interpret-mode wave kernel, ~5 min on the CPU mesh.)"""
-    from pbrs_tpu.accel import fused_wave as fw
-
-    scene = _small_scene()
-    integ = fw.FusedWaveIntegrator(scene, interpret=True, use_pallas=False)
-    sampler = smp.PCGSampler(17)
-    n = 64 * 48
-    pix = jnp.arange(n, dtype=jnp.int32)
-    sid = jnp.zeros(n, jnp.int32)
-
-    ref = jax.jit(lambda: integ.render_samples(
-        sampler, pix, sid, max_depth=3, msaa=2))()
-    got = jax.jit(lambda: integ.render_samples_compacted(
-        sampler, pix, sid, (n, n, n), max_depth=3, msaa=2,
-        resort=True))()
     np.testing.assert_allclose(np.asarray(ref), np.asarray(got),
                                atol=1e-5, rtol=1e-4)

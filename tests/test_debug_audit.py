@@ -10,14 +10,14 @@ estimate.
 import jax.numpy as jnp
 import numpy as np
 
-from pbrs_tpu import render as render_mod
-from pbrs_tpu.core import sampler as smp
-from pbrs_tpu.integrators import debug_audit, wavefront
-from pbrs_tpu.scene import presets
+from pbrs_jax import render as render_mod
+from pbrs_jax.core import sampler as smp
+from pbrs_jax.integrators import debug_audit, wavefront
+from pbrs_jax.scene import presets
 
 
 def _small(scene, size=48):
-    from pbrs_tpu.geometry import camera as cam_mod
+    from pbrs_jax.geometry import camera as cam_mod
 
     cam = scene.camera
     fresh = cam_mod.make_camera((size, size), 40.0)
@@ -48,8 +48,8 @@ def test_poisoned_material_is_caught():
     # comparisons launder it into dead lanes, so the film goes black with
     # no error anywhere. Bake the NaN in like a corrupted scene file
     # would — a NaN-albedo sphere filling the view.
-    from pbrs_tpu.geometry import camera as cam_mod
-    from pbrs_tpu.scene.buffers import SceneBuilder
+    from pbrs_jax.geometry import camera as cam_mod
+    from pbrs_jax.scene.buffers import SceneBuilder
 
     b = SceneBuilder()
     g = b.geometry

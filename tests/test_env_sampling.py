@@ -5,7 +5,7 @@ only, src/directlighting.rs:93-99]"""
 import numpy as np
 import jax.numpy as jnp
 
-from pbrs_tpu.lights import env_sampling as es
+from pbrs_jax.lights import env_sampling as es
 
 
 def _test_image(h=16, w=32, seed=0):
@@ -52,7 +52,7 @@ def test_sample_pdf_consistency():
     dirs, dw = _sphere_grid(256, 512)
     h, w = img.shape[:2]
     # Riemann: luminance at nearest texel
-    from pbrs_tpu.lights import lights as lt
+    from pbrs_jax.lights import lights as lt
     env = lt.make_env_image(img)
     vals = np.asarray(lt.eval_env(env, jnp.asarray(dirs)))
     lum_g = (0.21267127 * vals[:, 0] + 0.71515972 * vals[:, 1]
@@ -82,7 +82,7 @@ def test_samples_follow_radiance():
 
 def test_sampled_dirs_roundtrip_radiance():
     """eval_env along sampled directions returns the sampled texel."""
-    from pbrs_tpu.lights import lights as lt
+    from pbrs_jax.lights import lights as lt
 
     img = _test_image()
     dist = es.build_distribution(img)
@@ -102,11 +102,11 @@ def test_env_is_reduces_variance_end_to_end():
     env distribution must cut per-pixel variance vs BSDF-only sampling at
     equal spp (the measured MSE win recorded in ACCURACY.md)."""
     import jax.numpy as jnp
-    from pbrs_tpu.core import sampler as smp
-    from pbrs_tpu.geometry import camera as cam_mod
-    from pbrs_tpu.integrators import wavefront
-    from pbrs_tpu.lights import lights as lt
-    from pbrs_tpu.scene.buffers import SceneBuilder
+    from pbrs_jax.core import sampler as smp
+    from pbrs_jax.geometry import camera as cam_mod
+    from pbrs_jax.integrators import wavefront
+    from pbrs_jax.lights import lights as lt
+    from pbrs_jax.scene.buffers import SceneBuilder
 
     def build(importance):
         b = SceneBuilder()

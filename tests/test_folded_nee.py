@@ -7,11 +7,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pbrs_tpu.core import sampler as smp
-from pbrs_tpu.geometry import camera as cam_mod
-from pbrs_tpu.integrators import wavefront
-from pbrs_tpu.lights import lights as lt
-from pbrs_tpu.scene.buffers import SceneBuilder
+from pbrs_jax.core import sampler as smp
+from pbrs_jax.geometry import camera as cam_mod
+from pbrs_jax.integrators import wavefront
+from pbrs_jax.lights import lights as lt
+from pbrs_jax.scene.buffers import SceneBuilder
 
 
 def _scene():

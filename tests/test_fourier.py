@@ -6,8 +6,8 @@ import struct
 import numpy as np
 import jax.numpy as jnp
 
-from pbrs_tpu.bxdf import fourier as fb
-from pbrs_tpu.core import vecmath as vm
+from pbrs_jax.bxdf import fourier as fb
+from pbrs_jax.core import vecmath as vm
 
 WO = vm.normalize(jnp.asarray([[0.2, -0.3, 0.85]], jnp.float32))
 
@@ -101,10 +101,10 @@ def test_scatfun_roundtrip(tmp_path):
 
 def test_fourier_material_in_scene_renders():
     import jax
-    from pbrs_tpu.scene.buffers import SceneBuilder
-    from pbrs_tpu.geometry import camera as cam_mod
-    from pbrs_tpu.integrators import wavefront
-    from pbrs_tpu.core import sampler as smp
+    from pbrs_jax.scene.buffers import SceneBuilder
+    from pbrs_jax.geometry import camera as cam_mod
+    from pbrs_jax.integrators import wavefront
+    from pbrs_jax.core import sampler as smp
 
     b = SceneBuilder()
     table = fb.make_lambert_table(0.5, n_mu=16)
@@ -181,9 +181,9 @@ def test_multi_table_pdf_and_sample_per_lane():
 def test_two_fourier_materials_one_scene():
     """MaterialBuilder path: two .bsdf materials coexist; shading_at routes
     hits to their own tables through the packed alpha slot."""
-    from pbrs_tpu.materials import table as mat_mod
-    from pbrs_tpu.textures import textures as tex_mod
-    from pbrs_tpu.bxdf import bsdf as bsdf_mod
+    from pbrs_jax.materials import table as mat_mod
+    from pbrs_jax.textures import textures as tex_mod
+    from pbrs_jax.bxdf import bsdf as bsdf_mod
 
     b = mat_mod.MaterialBuilder()
     m0 = b.add_fourier(fb.make_lambert_table(0.25, n_mu=32))

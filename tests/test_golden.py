@@ -2,10 +2,10 @@
 
 Rounds of performance work must not silently shift radiance: every scene
 family gets a tiny deterministic render whose radiance sum is pinned to a
-stored value (tests/golden_checksums.json). The PCG sampler is stateless
-and the sharded image is platform-invariant (MULTICHIP_BENCH.json:
-identical checksums on CPU meshes and real TPU), so these values are
-stable across backends; tolerance covers float-order drift only.
+stored value (pbrs_jax/data/golden_checksums.json). The PCG sampler is
+stateless, so these values are stable across backends; the tolerance
+covers float-order drift only. chip_smoke.py checks the same families on
+the GPU.
 
 Regenerate after an INTENTIONAL estimator change:
     python tests/test_golden.py --regen
@@ -14,90 +14,34 @@ Regenerate after an INTENTIONAL estimator change:
 import json
 import os
 
-import numpy as np
-import jax.numpy as jnp
 import pytest
 
-GOLDEN_PATH = os.path.join(os.path.dirname(__file__),
-                           "golden_checksums.json")
-REL_TOL = 2e-3
+from pbrs_jax import checks
 
-# Families pinned in the DEFAULT suite: one diffuse interior (cornell),
-# one BVH mesh (mesh_ball), one large mixed-primitive scene (everything).
-# The remaining families run under `-m slow` (full gate before snapshot);
-# suite-time budget per round-3 verdict weak #7.
-_FAST = ("cornell_box", "mesh_ball_l2", "everything")
-
-
-def _configs():
-    from pbrs_tpu.scene import presets
-    from pbrs_tpu.geometry import camera as cam_mod
-
-    def shrunk(scene, size=48):
-        cam = scene.camera
-        fresh = cam_mod.make_camera((size, size), 40.0)
-        return scene.replace(camera=fresh.replace(
-            center=cam.center, orientation=cam.orientation,
-            a=cam.a * ((cam.width // 2) / (size // 2)),
-            b=cam.b * ((cam.height // 2) / (size // 2)),
-            c=cam.c,
-        ))
-
-    return {
-        "cornell_box": (lambda: shrunk(presets.cornell_box()), 4),
-        "mesh_ball_l2": (lambda: shrunk(presets.mesh_ball(levels=2)), 4),
-        "plates": (lambda: shrunk(presets.plates()), 4),
-        "two_perlin": (lambda: shrunk(presets.two_perlin_spheres()), 4),
-        "env_mapped": (lambda: shrunk(presets.env_mapped()), 4),
-        "mixed_spheres": (lambda: shrunk(presets.mixed_spheres()), 3),
-        "everything": (lambda: shrunk(presets.everything(), size=32), 3),
-    }
-
-
-def _checksum(scene, depth):
-    from pbrs_tpu.core import sampler as smp
-    from pbrs_tpu.integrators import wavefront
-
-    sampler = smp.PCGSampler(0)
-    n = scene.camera.width * scene.camera.height
-    pix = jnp.arange(n, dtype=jnp.int32)
-    total = 0.0
-    for s in range(2):
-        rad = wavefront.render_samples(scene, sampler, pix, s,
-                                       max_depth=depth, msaa=2)
-        total += float(jnp.sum(rad))
-    return total
-
-
-def _load():
-    with open(GOLDEN_PATH) as f:
-        return json.load(f)
+# The preset families; the zoo families run in tests/test_zoo.py.
+PRESET_FAMILIES = ("cornell_box", "mesh_ball_l2", "plates", "two_perlin",
+                   "env_mapped", "mixed_spheres", "everything")
 
 
 def _check_family(name):
-    golden = _load()
-    mk, depth = _configs()[name]
-    got = _checksum(mk(), depth)
+    golden = checks.load_golden()
+    mk, depth = checks.golden_families()[name]
+    got = checks.golden_checksum(mk(), depth)
     want = golden[name]
-    assert abs(got - want) <= REL_TOL * abs(want) + 1e-6, (
+    assert checks.golden_ok(got, want), (
         f"{name}: checksum {got!r} drifted from pinned {want!r} "
         f"(rel {abs(got - want) / max(abs(want), 1e-9):.2e}) — if the "
         "estimator change is intentional, regenerate with "
         "`python tests/test_golden.py --regen` and document it")
 
 
-@pytest.mark.parametrize("name", _FAST)
+@pytest.mark.parametrize("name", PRESET_FAMILIES)
 def test_pinned_checksums(name):
     _check_family(name)
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize(
-    "name", [n for n in ("cornell_box", "mesh_ball_l2", "plates",
-                         "two_perlin", "env_mapped", "mixed_spheres",
-                         "everything") if n not in _FAST])
-def test_pinned_checksums_full(name):
-    _check_family(name)
+def test_every_family_is_pinned():
+    assert sorted(checks.load_golden()) == sorted(checks.golden_families())
 
 
 if __name__ == "__main__":
@@ -108,10 +52,13 @@ if __name__ == "__main__":
 
     jax.config.update("jax_platforms", "cpu")
     if "--regen" in sys.argv:
-        out = {}
-        for name, (mk, depth) in _configs().items():
-            out[name] = _checksum(mk(), depth)
+        names = sys.argv[sys.argv.index("--regen") + 1:]
+        out = checks.load_golden()
+        for name, (mk, depth) in checks.golden_families().items():
+            if names and name not in names:
+                continue
+            out[name] = checks.golden_checksum(mk(), depth)
             print(name, out[name], flush=True)
-        with open(GOLDEN_PATH, "w") as f:
+        with open(checks.GOLDEN_PATH, "w") as f:
             json.dump(out, f, indent=1)
-        print(f"wrote {GOLDEN_PATH}")
+        print(f"wrote {checks.GOLDEN_PATH}")

@@ -3,20 +3,20 @@
 The reference intersects instances by inverse-transforming the ray and
 forward-transforming the hit (reference tlas/src/instance.rs:50-67), so
 any affine transform is exact and geometry is stored once. These tests pin
-the TPU equivalent: exact ellipsoids, O(1) geometry per instance, correct
+the batched equivalent: exact ellipsoids, O(1) geometry per instance, correct
 world-space normals/occlusion, and the PBRT ObjectInstance path.
 """
 
 import numpy as np
 import jax.numpy as jnp
 
-from pbrs_tpu.accel import dispatch, instanced
-from pbrs_tpu.core import sampler as smp
-from pbrs_tpu.geometry import camera as cam_mod
-from pbrs_tpu.geometry import ray as ray_mod
-from pbrs_tpu.geometry import transform as tf
-from pbrs_tpu.scene.buffers import SceneBuilder
-from pbrs_tpu.shapes.tables import GeometryBuilder
+from pbrs_jax.accel import dispatch, instanced
+from pbrs_jax.core import sampler as smp
+from pbrs_jax.geometry import camera as cam_mod
+from pbrs_jax.geometry import ray as ray_mod
+from pbrs_jax.geometry import transform as tf
+from pbrs_jax.scene.buffers import SceneBuilder
+from pbrs_jax.shapes.tables import GeometryBuilder
 
 
 def _rays(origins, dirs):
@@ -45,7 +45,7 @@ def _ellipsoid_scene(scale=(2.0, 1.0, 1.0)):
 def test_ellipsoid_exact_hits():
     scene = _ellipsoid_scene((2.0, 1.0, 1.0))
     assert len(scene.instanced) == 1
-    isect, _ = dispatch.make_trace_fns(scene, use_pallas=False)
+    isect, _ = dispatch.make_trace_fns(scene)
     rays = _rays(
         [[5, 0, 0], [0, 5, 0], [0, 0, 5], [0, 1.5, 5]],
         [[-1, 0, 0], [0, -1, 0], [0, 0, -1], [0, 0, -1]],
@@ -66,7 +66,7 @@ def test_ellipsoid_normal_non_radial():
     # direction: for x^2/4 + y^2 + z^2 = 1 the normal at p is
     # normalize(p_x/4, p_y, p_z) (inverse-transpose transform).
     scene = _ellipsoid_scene((2.0, 1.0, 1.0))
-    isect, _ = dispatch.make_trace_fns(scene, use_pallas=False)
+    isect, _ = dispatch.make_trace_fns(scene)
     # Hit the point p = (2 cos45, sin45, 0) ~ (1.4142, 0.7071, 0) by aiming
     # straight down from above it.
     px = 2.0 * np.cos(np.pi / 4)
@@ -113,15 +113,14 @@ def test_instanced_occlusion_and_render():
     cam = cam_mod.make_camera((24, 24), 60.0)
     b.camera = cam_mod.looking_at(cam, (0, 8, 8), (0, 0, 0), (0, 1, 0))
     scene = b.build()
-    from pbrs_tpu import render
+    from pbrs_jax import render
 
-    img, _ = render.render_image(scene, spp=4, max_depth=2,
-                                 use_pallas=False)
+    img, _ = render.render_image(scene, spp=4, max_depth=2)
     img = np.asarray(img)
     assert np.isfinite(img).all()
     # Directly probe occlusion: a ray from the floor under the box to the
     # light must be blocked; one off to the side must not.
-    _, occl = dispatch.make_trace_fns(scene, use_pallas=False)
+    _, occl = dispatch.make_trace_fns(scene)
     to_light_blocked = _rays([[0, 0.01, 0]], [[0, 1, 0]])
     to_light_blocked = to_light_blocked.replace(
         t_max=jnp.asarray([5.9], jnp.float32))
@@ -167,8 +166,8 @@ def test_group_trace_matches_baked_equivalent():
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     rays = _rays(o, d)
-    hi = dispatch.make_trace_fns(scene_i, use_pallas=False)[0](rays)
-    hb = dispatch.make_trace_fns(scene_b, use_pallas=False)[0](rays)
+    hi = dispatch.make_trace_fns(scene_i)[0](rays)
+    hb = dispatch.make_trace_fns(scene_b)[0](rays)
     np.testing.assert_array_equal(np.asarray(hi.hit), np.asarray(hb.hit))
     m = np.asarray(hi.hit)
     np.testing.assert_allclose(np.asarray(hi.t)[m], np.asarray(hb.t)[m],
@@ -201,7 +200,7 @@ WorldBegin
   LightSource "point" "rgb I" [10 10 10] "point from" [0 5 2]
 WorldEnd
 """)
-    from pbrs_tpu.scene.pbrt import loader as pbrt_loader
+    from pbrs_jax.scene.pbrt import loader as pbrt_loader
 
     scene = pbrt_loader.build_scene(str(scene_file))
     assert len(scene.instanced) == 1
@@ -209,7 +208,7 @@ WorldEnd
     assert grp.fwd.shape[0] == 2  # two instances, one master
     assert grp.geom.tri_p0.shape[0] == 1  # geometry stored once
     # Instance 2 scales y by 2: apex at y=2 over x=+2.
-    isect, _ = dispatch.make_trace_fns(scene, use_pallas=False)
+    isect, _ = dispatch.make_trace_fns(scene)
     h = isect(_rays([[2, 1.5, 5]], [[0, 0, -1]]))
     assert bool(h.hit[0])
     h2 = isect(_rays([[-2, 1.5, 5]], [[0, 0, -1]]))
@@ -231,11 +230,11 @@ WorldBegin
   LightSource "point" "rgb I" [10 10 10] "point from" [0 5 2]
 WorldEnd
 """)
-    from pbrs_tpu.scene.pbrt import loader as pbrt_loader
+    from pbrs_jax.scene.pbrt import loader as pbrt_loader
 
     scene = pbrt_loader.build_scene(str(scene_file))
     assert len(scene.instanced) == 1
-    isect, _ = dispatch.make_trace_fns(scene, use_pallas=False)
+    isect, _ = dispatch.make_trace_fns(scene)
     h = isect(_rays([[10, 0, 0], [0, 10, 0]], [[-1, 0, 0], [0, -1, 0]]))
     np.testing.assert_allclose(np.asarray(h.t), [7.0, 9.0], atol=1e-4)
 
@@ -244,14 +243,13 @@ def test_sharded_render_includes_instanced_geometry():
     # render_image_sharded must route through the instancing-aware trace
     # fns — the plain scene.geom fallback would silently drop groups.
     import jax
-    from pbrs_tpu import parallel, render
+    from pbrs_jax import parallel, render
 
     scene = _ellipsoid_scene((2.0, 1.0, 1.0))
     cam = scene.camera
     mesh = parallel.make_mesh(2, 2, devices=jax.devices()[:4])
     img_sharded = parallel.render_image_sharded(scene, 4, mesh, max_depth=2)
-    img_single, _ = render.render_image(scene, spp=4, max_depth=2,
-                                        use_pallas=False)
+    img_single, _ = render.render_image(scene, spp=4, max_depth=2)
     np.testing.assert_allclose(np.asarray(img_sharded),
                                np.asarray(img_single), atol=1e-5)
     assert float(np.abs(np.asarray(img_sharded)).sum()) > 0.0

@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pbrs_tpu.core import sampler as smp
-from pbrs_tpu.geometry import camera as cam_mod
-from pbrs_tpu.integrators import wavefront, direct
-from pbrs_tpu.scene import presets
+from pbrs_jax.core import sampler as smp
+from pbrs_jax.geometry import camera as cam_mod
+from pbrs_jax.integrators import wavefront, direct
+from pbrs_jax.scene import presets
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +76,7 @@ def _mirror_light_scene():
     a diffuse floor (regression scene for the NEE delta double-count bug:
     light seen through a specular bounce must be counted exactly once —
     ADVICE r1 #1 / COMPAT.md #12)."""
-    from pbrs_tpu.scene.buffers import SceneBuilder
+    from pbrs_jax.scene.buffers import SceneBuilder
 
     b = SceneBuilder()
     mirror = b.materials.add_mirror()

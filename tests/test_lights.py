@@ -4,9 +4,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pbrs_tpu.core import vecmath as vm
-from pbrs_tpu.lights import sample_shape as ss
-from pbrs_tpu.lights import lights as lt
+from pbrs_jax.core import vecmath as vm
+from pbrs_jax.lights import sample_shape as ss
+from pbrs_jax.lights import lights as lt
 
 
 def _params(n, p0=(0, 0, 0), p1=(1, 0, 0), p2=(0, 1, 0), scalar=1.0):

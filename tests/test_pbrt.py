@@ -6,11 +6,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pbrs_tpu.scene import ply as ply_mod
-from pbrs_tpu.scene import subdivision
-from pbrs_tpu.scene.pbrt import loader as pbrt_loader
-from pbrs_tpu.scene.pbrt import parser as pbrt_parser
-from pbrs_tpu.scene.pbrt import tokenizer
+from pbrs_jax.scene import ply as ply_mod
+from pbrs_jax.scene import subdivision
+from pbrs_jax.scene.pbrt import loader as pbrt_loader
+from pbrs_jax.scene.pbrt import parser as pbrt_parser
+from pbrs_jax.scene.pbrt import tokenizer
 
 CORNELL_PBRT = """
 # cornell-style test scene
@@ -90,8 +90,8 @@ def test_loader_builds_scene(tmp_path):
 
 def test_loader_end_to_end_render(tmp_path):
     import jax
-    from pbrs_tpu.core import sampler as smp
-    from pbrs_tpu.integrators import wavefront
+    from pbrs_jax.core import sampler as smp
+    from pbrs_jax.integrators import wavefront
 
     path = tmp_path / "scene.pbrt"
     path.write_text(CORNELL_PBRT)

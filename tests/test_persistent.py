@@ -5,10 +5,10 @@ streams per (pixel, sample, bounce) — regardless of lane-pool size."""
 import numpy as np
 import jax.numpy as jnp
 
-from pbrs_tpu.core import sampler as smp
-from pbrs_tpu.geometry import camera as cam_mod
-from pbrs_tpu.integrators import persistent, wavefront
-from pbrs_tpu.scene import presets
+from pbrs_jax.core import sampler as smp
+from pbrs_jax.geometry import camera as cam_mod
+from pbrs_jax.integrators import persistent, wavefront
+from pbrs_jax.scene import presets
 
 
 def _tasks(scene, n_pix, spp):

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pbrs_tpu.core import sampler as smp
-from pbrs_tpu.geometry import camera as cam_mod
-from pbrs_tpu.integrators import wavefront
-from pbrs_tpu.scene import presets
+from pbrs_jax.core import sampler as smp
+from pbrs_jax.geometry import camera as cam_mod
+from pbrs_jax.integrators import wavefront
+from pbrs_jax.scene import presets
 
 
 def _shrink(scene, size=16):
@@ -58,7 +58,7 @@ WorldEnd
 """
     path = tmp_path / "delta.pbrt"
     path.write_text(src)
-    from pbrs_tpu.scene.pbrt import loader as pbrt_loader
+    from pbrs_jax.scene.pbrt import loader as pbrt_loader
 
     scene = pbrt_loader.build_scene(str(path))
     assert scene.delta_lights.count == 2
@@ -92,7 +92,7 @@ WorldEnd
 """
     path = tmp_path / "bb.pbrt"
     path.write_text(src)
-    from pbrs_tpu.scene.pbrt import loader as pbrt_loader
+    from pbrs_jax.scene.pbrt import loader as pbrt_loader
 
     scene = pbrt_loader.build_scene(str(path))
     emit = np.asarray(scene.area_lights.emit[0])

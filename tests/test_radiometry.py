@@ -8,7 +8,7 @@ These tests pin our pipeline to that semantics.
 
 import numpy as np
 
-from pbrs_tpu import radiometry as rad
+from pbrs_jax import radiometry as rad
 
 
 def test_cie_tables_shape_and_anchors():

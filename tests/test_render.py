@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pbrs_tpu import parallel, render as render_mod
-from pbrs_tpu.geometry import camera as cam_mod
-from pbrs_tpu.io import image as io_image
-from pbrs_tpu.scene import presets
+from pbrs_jax import parallel, render as render_mod
+from pbrs_jax.geometry import camera as cam_mod
+from pbrs_jax.io import image as io_image
+from pbrs_jax.scene import presets
 
 
 @pytest.fixture(scope="module")
@@ -120,7 +120,7 @@ def test_sharded_render_matches_single(tiny_cornell):
 
 
 def test_cli_smoke(tmp_path, monkeypatch):
-    from pbrs_tpu import cli
+    from pbrs_jax import cli
 
     monkeypatch.chdir(tmp_path)
     out = str(tmp_path / "out.png")
@@ -130,3 +130,16 @@ def test_cli_smoke(tmp_path, monkeypatch):
     ])
     assert rc == 0
     assert os.path.exists(out)
+
+
+def test_morton_pixel_order_is_permutation():
+    from pbrs_jax.integrators import wavefront
+
+    for w, h in ((7, 5), (800, 600), (64, 64)):
+        order = wavefront.morton_pixel_order(w, h)
+        assert order.shape == (w * h,)
+        assert np.array_equal(np.sort(order), np.arange(w * h))
+    # Z-curve locality: the first 4 pixels of a pow2 image form a 2x2 tile.
+    o = wavefront.morton_pixel_order(64, 64)[:4]
+    xs, ys = o % 64, o // 64
+    assert xs.max() - xs.min() == 1 and ys.max() - ys.min() == 1

@@ -4,7 +4,7 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from pbrs_tpu.core import sampler as smp
+from pbrs_jax.core import sampler as smp
 
 
 def test_pcg_uniform_range_and_mean():
@@ -129,8 +129,8 @@ def test_sobol_beats_pcg_on_smooth_integrand():
 def test_sobol_renders_cornell_consistently():
     """End-to-end: a tiny Cornell render with the Sobol sampler matches the
     PCG render's mean brightness (same estimator, different sampler)."""
-    from pbrs_tpu.scene import presets
-    from pbrs_tpu.integrators import wavefront
+    from pbrs_jax.scene import presets
+    from pbrs_jax.integrators import wavefront
 
     scene = _small_cornell(64)
     n = 64 * 64
@@ -151,8 +151,8 @@ def test_sobol_renders_cornell_consistently():
 
 
 def _small_cornell(size):
-    from pbrs_tpu.scene import presets
-    from pbrs_tpu.geometry import camera as cam_mod
+    from pbrs_jax.scene import presets
+    from pbrs_jax.geometry import camera as cam_mod
 
     scene = presets.cornell_box()
     cam = cam_mod.looking_at(

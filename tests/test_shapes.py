@@ -4,9 +4,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pbrs_tpu.core import vecmath as vm
-from pbrs_tpu.geometry import ray as ray_mod
-from pbrs_tpu.shapes import tables, intersect
+from pbrs_jax.core import vecmath as vm
+from pbrs_jax.geometry import ray as ray_mod
+from pbrs_jax.shapes import tables, intersect
 
 
 def _single_ray(origin, direction, t_max=np.inf):
@@ -96,7 +96,7 @@ def test_cuboid_decomposition_slab_equivalence():
 
 
 def test_cuboid_transformed():
-    import pbrs_tpu.geometry.transform as tf
+    import pbrs_jax.geometry.transform as tf
 
     g = tables.GeometryBuilder()
     m = tf.compose(tf.translate((5, 0, 0)), tf.rotate_y(45.0))

@@ -1,10 +1,9 @@
-"""Round-3 fast paths under shard_map (8-device CPU mesh).
+"""Fast paths under shard_map (8-device CPU mesh).
 
 The compacting loop's film banking (`wavefront.bank()` block scatters)
-and the row-dense treelet kernel's row gathers are exactly the kind of
-code that silently breaks under sharding; neither had multi-device
-coverage before. Both tests pin sharded execution against the
-already-verified single-device semantics.
+and the tiled primitive sweep's scan are exactly the kind of code that
+silently breaks under sharding. Both tests pin sharded execution against
+the already-verified single-device semantics.
 """
 
 import jax
@@ -12,19 +11,19 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import PartitionSpec as P
 
-from pbrs_tpu import parallel
-from pbrs_tpu.accel import bvh as bvh_mod
-from pbrs_tpu.accel import treelet as tl
-from pbrs_tpu.core import sampler as smp
-from pbrs_tpu.geometry import ray as ray_mod
-from pbrs_tpu.integrators import wavefront
-from pbrs_tpu.scene import presets
+from pbrs_jax import parallel
+from pbrs_jax.core import sampler as smp
+from pbrs_jax.geometry import ray as ray_mod
+from pbrs_jax.integrators import wavefront
+from pbrs_jax.scene import presets
+from pbrs_jax.shapes import intersect as isect_mod
+from pbrs_jax.shapes.tables import GeometryBuilder
 
 N_DEV = 8
 
 
 def _small_scene(w=64, h=48):
-    from pbrs_tpu.geometry import camera as cam_mod
+    from pbrs_jax.geometry import camera as cam_mod
 
     scene = presets.mesh_ball(levels=2)
     cam = scene.camera
@@ -79,39 +78,36 @@ def test_sharded_compacted_matches_sharded_masked():
     np.testing.assert_allclose(masked, compacted, atol=1e-5, rtol=1e-4)
 
 
-def test_sharded_rowdense_matches_single_device_onehot():
-    """trace(mode='rowdense') under shard_map == single-device one-hot
-    trace: per-shard row gathers and the shared-column one-hot must not
-    depend on the global lane layout."""
+def test_sharded_sweep_matches_single_device():
+    """The tiled primitive sweep under shard_map == the single-device
+    sweep: per-shard tiles must not depend on the global lane layout."""
     rng = np.random.default_rng(0)
-    n_tri = 300
+    n_tri = 700  # > SWEEP_TILE: the scanned, padded form
     p0 = rng.uniform(-1, 1, (n_tri, 3)).astype(np.float32)
     p1 = p0 + rng.uniform(-0.2, 0.2, (n_tri, 3)).astype(np.float32)
     p2 = p0 + rng.uniform(-0.2, 0.2, (n_tri, 3)).astype(np.float32)
-    lo, hi = bvh_mod.triangle_bboxes(p0, p1, p2)
-    tr = tl.TreeletTracer(tl.KIND_TRI, tl._tri_fields(p0, p1, p2), lo, hi,
-                          0, interpret=True)
-    assert tr.rowdense_ok
+    g = GeometryBuilder()
+    for a, b, c in zip(p0, p1, p2):
+        g.add_triangle(a, b, c, mat=0)
+    geom = g.build()
 
     n_rays = 2048
     o = rng.uniform(-3, 3, (n_rays, 3)).astype(np.float32)
     d = rng.normal(size=(n_rays, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = ray_mod.RayBatch(
-        origin=jnp.asarray(o), dir=jnp.asarray(d),
-        t_max=jnp.full(n_rays, 3e38, jnp.float32))
+    rays = ray_mod.make_rays(jnp.asarray(o), jnp.asarray(d))
 
-    t_ref, i_ref = tr.trace(rays)  # single-device one-hot
+    t_ref, i_ref = isect_mod.closest_t(geom, rays)
+    occ_ref = isect_mod.occluded(geom, rays)
 
     mesh = parallel.make_mesh(n_dp=N_DEV, n_sp=1)
     fn = jax.shard_map(
-        lambda r: tr.trace(r, mode="rowdense"), mesh=mesh,
-        in_specs=P(("dp", "sp")), out_specs=P(("dp", "sp")),
+        lambda r: (*isect_mod.closest_t(geom, r), isect_mod.occluded(geom, r)),
+        mesh=mesh, in_specs=P(("dp", "sp")), out_specs=P(("dp", "sp")),
         check_vma=False)
-    t_sh, i_sh = jax.jit(fn)(rays)
+    t_sh, i_sh, occ_sh = jax.jit(fn)(rays)
 
+    assert np.isfinite(np.asarray(t_ref)).any()
     np.testing.assert_array_equal(np.asarray(i_ref), np.asarray(i_sh))
-    np.testing.assert_allclose(
-        np.where(np.isfinite(np.asarray(t_ref)), np.asarray(t_ref), -1.0),
-        np.where(np.isfinite(np.asarray(t_sh)), np.asarray(t_sh), -1.0),
-        rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(t_ref), np.asarray(t_sh))
+    np.testing.assert_array_equal(np.asarray(occ_ref), np.asarray(occ_sh))

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pbrs_tpu.core import filters, spline
+from pbrs_jax.core import filters, spline
 
 
 def test_tridiagonal_known_solution():

@@ -1,16 +1,16 @@
-"""Pilot-measured configuration selection (pbrs_tpu.tuner)."""
+"""Pilot-measured configuration selection (pbrs_jax.tuner)."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from pbrs_tpu import tuner
-from pbrs_tpu.core import sampler as smp
-from pbrs_tpu.integrators import wavefront
-from pbrs_tpu.scene import presets
+from pbrs_jax import tuner
+from pbrs_jax.core import sampler as smp
+from pbrs_jax.integrators import wavefront
+from pbrs_jax.scene import presets
 
 
 def _small_scene():
-    from pbrs_tpu.geometry import camera as cam_mod
+    from pbrs_jax.geometry import camera as cam_mod
 
     scene = presets.mesh_ball(levels=2)
     cam = scene.camera
@@ -25,8 +25,7 @@ def test_tune_selects_and_matches_reference():
     """tune() must return a runnable winner whose image agrees with the
     plain masked wavefront of the SAME NEE structure (twoarm and folded
     candidates share the expectation but not the per-sample estimate, so
-    the reference follows the winner's nee_mode; failing candidates —
-    e.g. fused kernels on the CPU backend — are skipped)."""
+    the reference follows the winner's nee_mode)."""
     scene = _small_scene()
     sampler = smp.PCGSampler(3)
     n = 64 * 48
@@ -56,13 +55,14 @@ def test_tune_env_and_explicit_overrides(monkeypatch):
     pix = jnp.arange(n, dtype=jnp.int32)
     sid = jnp.zeros(n, jnp.int32)
 
-    # Explicit pin: exactly one candidate, no timing loop needed.
+    # Explicit pin: the masked loop only, no shrink schedule.
     t = tuner.tune(scene, sampler, pix, sid, depth=3, msaa=1,
-                   trace_mode=None, compact=False)
-    assert t.schedule is None
+                   compact=False)
+    assert t.schedule is None and not t.resort
 
     # env wins over the argument (kept for profiling scripts).
-    monkeypatch.setenv("PBRS_TRACE_MODE", "rowdense")
+    monkeypatch.setenv("PBRS_COMPACT", "0")
+    monkeypatch.setenv("PBRS_TUNER_NOCACHE", "1")
     t2 = tuner.tune(scene, sampler, pix, sid, depth=3, msaa=1,
-                    trace_mode=None, compact=False)
-    assert t2.trace_mode == "rowdense"
+                    compact="auto")
+    assert t2.schedule is None and not t2.resort

@@ -4,7 +4,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pbrs_tpu.core import vecmath as vm
+from pbrs_jax.core import vecmath as vm
 
 
 def test_reflect_simple():

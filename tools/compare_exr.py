@@ -15,7 +15,7 @@ import sys
 import numpy as np
 
 sys.path.insert(0, ".")
-from pbrs_tpu.io import image as io_image  # noqa: E402
+from pbrs_jax.io import image as io_image  # noqa: E402
 
 
 def main(a_path, b_path):

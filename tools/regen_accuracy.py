@@ -1,13 +1,13 @@
 #!/usr/bin/env python
 """Regenerate the ACCURACY.md §3 convergence evidence from a fresh clone.
 
-Renders the Cornell box (256², 8 bounces, fused diffuse kernel) at
+Renders the Cornell box (256², 8 bounces, general wavefront) at
 64 spp and at 1024 spp under two independent seeds, writes the EXRs to
 out/accuracy/, computes the MSEs with the same arithmetic as
 tools/compare_exr.py, ASSERTS the documented thresholds, and writes
 out/accuracy/summary.json.
 
-    python tools/regen_accuracy.py          # on TPU (minutes)
+    python tools/regen_accuracy.py          # on the GPU
     JAX_PLATFORMS=cpu python tools/regen_accuracy.py --size 96  # smoke
 
 The reference publishes no images and its mounted snapshot does not build
@@ -30,9 +30,9 @@ import numpy as np  # noqa: E402
 def render(scene_size, spp, seed):
     import jax.numpy as jnp
 
-    from pbrs_tpu import render as render_mod
-    from pbrs_tpu.geometry import camera as cam_mod
-    from pbrs_tpu.scene import presets
+    from pbrs_jax import render as render_mod
+    from pbrs_jax.geometry import camera as cam_mod
+    from pbrs_jax.scene import presets
 
     scene = presets.cornell_box()
     cam = cam_mod.looking_at(
@@ -40,8 +40,7 @@ def render(scene_size, spp, seed):
         (278, 278, -800), (278, 278, 0), (0, 1, 0))
     scene = scene.replace(camera=cam)
     img, _ = render_mod.render_image(scene, spp=spp, max_depth=8,
-                                     seed=seed, trace_mode=None,
-                                     compact=False)
+                                     seed=seed)
     del jnp
     return np.asarray(img)
 
@@ -53,11 +52,10 @@ def main():
     ap.add_argument("--spp_hi", type=int, default=1024)
     args = ap.parse_args()
 
-    import jax
+    from pbrs_jax import runtime
+    from pbrs_jax.io import image as io_image
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-
-    from pbrs_tpu.io import image as io_image
+    runtime.enable_compile_cache()
 
     outdir = os.path.join("out", "accuracy")
     os.makedirs(outdir, exist_ok=True)
